@@ -1,3 +1,3 @@
-"""Learning agents (flax/optax) — the TPU-native replacement for the
+"""Learning agents (plain JAX + optax) — the replacement for the
 reference's Ray RLlib integration (adcraft/experiment_utils/agent_configs.py,
 adcraft/RL/train_agent.ipynb)."""

@@ -1,6 +1,6 @@
 """A2C on the vectorized bidding environment.
 
-TPU-native replacement for the reference's ``sem_a2c_config`` (RLlib
+Replacement for the reference's ``sem_a2c_config`` (RLlib
 A2CConfig, adcraft/experiment_utils/agent_configs.py:74-89): gamma=0.99,
 lambda=0.99, lr=1e-3, grad_clip=1.0, vf_coeff=0.5, entropy_coeff=0.01,
 [256, 256] relu nets. Instead of 23 workers x 2 envs, the env batch is an

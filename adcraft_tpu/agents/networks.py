@@ -1,43 +1,68 @@
 """Policy / value networks.
 
-Flax MLPs mirroring the reference's RLlib model configs: PPO uses
+Plain-JAX MLPs mirroring the reference's RLlib model configs: PPO uses
 [32, 32] relu (agent_configs.py:64-67), A2C [256, 256] (:79-82), TD3
 [400, 300] (:97-100). Observations are the flattened dict (sorted keys,
 5K+2 floats — gymnasium_kw_utils.py:383-390).
+
+Each network is a frozen description with ``init(key, x) -> params`` and
+``apply(params, x)``; params are plain pytrees (lists and dicts of
+arrays) that optax and the checkpointer take as they are. Dense layers
+use lecun-normal kernels and zero biases.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import List, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 Array = jax.Array
 
+_KERNEL_INIT = jax.nn.initializers.lecun_normal()
 
-class MLP(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class MLP:
+    """Dense layers ``hidden + (out,)`` with ``activation`` between them.
+
+    Params: one ``{"kernel": (in, out), "bias": (out,)}`` dict per layer.
+    """
+
     hidden: Sequence[int]
     out: int
     activation: str = "relu"
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        act = getattr(nn, self.activation)
-        for h in self.hidden:
-            x = act(nn.Dense(h)(x))
-        return nn.Dense(self.out)(x)
+    def init(self, key: Array, x: Array) -> List[dict]:
+        sizes = (jnp.shape(x)[-1],) + tuple(self.hidden) + (self.out,)
+        keys = jax.random.split(key, len(sizes) - 1)
+        return [
+            {
+                "kernel": _KERNEL_INIT(k, (n_in, n_out), jnp.float32),
+                "bias": jnp.zeros((n_out,), jnp.float32),
+            }
+            for k, n_in, n_out in zip(keys, sizes[:-1], sizes[1:])
+        ]
+
+    def apply(self, params: List[dict], x: Array) -> Array:
+        act = getattr(jax.nn, self.activation)
+        for layer in params[:-1]:
+            x = act(x @ layer["kernel"] + layer["bias"])
+        return x @ params[-1]["kernel"] + params[-1]["bias"]
 
 
-class GaussianPolicy(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GaussianPolicy:
     """Diagonal-Gaussian policy over the flat action vector.
 
     Outputs are squashed to the env's valid box: per-keyword bids in
     [min_bid, max_bid] and a budget in [min_budget, max_budget] via
     sigmoid scaling. (The reference trains RLlib policies directly on the
     unbounded Box and relies on env-side clamping; squashing keeps PPO's
-    log-probs well-defined.)
+    log-probs well-defined.) ``log_std`` is a state-independent learned
+    vector, initialised to -0.5.
     """
 
     num_keywords: int
@@ -47,14 +72,19 @@ class GaussianPolicy(nn.Module):
     min_budget: float = 100.0
     max_budget: float = 10000.0
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Tuple[Array, Array]:
-        dim = self.num_keywords + 1
-        mean = MLP(self.hidden, dim)(obs)
-        log_std = self.param(
-            "log_std", nn.initializers.constant(-0.5), (dim,)
-        )
-        return mean, jnp.broadcast_to(log_std, mean.shape)
+    @property
+    def _mlp(self) -> MLP:
+        return MLP(self.hidden, self.num_keywords + 1)
+
+    def init(self, key: Array, obs: Array) -> dict:
+        return {
+            "mlp": self._mlp.init(key, obs),
+            "log_std": jnp.full((self.num_keywords + 1,), -0.5, jnp.float32),
+        }
+
+    def apply(self, params: dict, obs: Array) -> Tuple[Array, Array]:
+        mean = self._mlp.apply(params["mlp"], obs)
+        return mean, jnp.broadcast_to(params["log_std"], mean.shape)
 
     def squash(self, raw: Array) -> Tuple[Array, Array]:
         """Map a raw Gaussian sample to (bids (…,K), budget (…,))."""
@@ -64,12 +94,15 @@ class GaussianPolicy(nn.Module):
         return bids, budget
 
 
-class ValueNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ValueNet:
     hidden: Sequence[int] = (32, 32)
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Array:
-        return MLP(self.hidden, 1)(obs)[..., 0]
+    def init(self, key: Array, obs: Array) -> List[dict]:
+        return MLP(self.hidden, 1).init(key, obs)
+
+    def apply(self, params: List[dict], obs: Array) -> Array:
+        return MLP(self.hidden, 1).apply(params, obs)[..., 0]
 
 
 def flatten_obs(obs: dict) -> Array:

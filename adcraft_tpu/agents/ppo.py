@@ -1,6 +1,6 @@
 """PPO on the vectorized bidding environment.
 
-TPU-native replacement for the reference's RLlib PPO integration
+Replacement for the reference's RLlib PPO integration
 (``sem_ppo_config``, adcraft/experiment_utils/agent_configs.py:56-71).
 Defaults mirror that config where it makes sense: gamma=0.995,
 lambda=0.95, lr=1e-4, clip=0.5, [32,32] relu nets, 2048-step train

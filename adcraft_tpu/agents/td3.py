@@ -1,6 +1,6 @@
 """TD3 on the vectorized bidding environment.
 
-TPU-native replacement for the reference's ``sem_td3_config`` (RLlib
+Replacement for the reference's ``sem_td3_config`` (RLlib
 TD3Config, adcraft/experiment_utils/agent_configs.py:92-128): gamma=0.995,
 lr=1e-3, tau=0.005, replay capacity 1e6, 10k pure-random warmup steps,
 Gaussian exploration noise sigma=0.1, [400, 300] relu nets.
@@ -16,7 +16,6 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
@@ -46,23 +45,33 @@ class TD3Config:
     hidden: Tuple[int, int] = (400, 300)
 
 
-class Actor(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Actor:
+    """tanh-bounded raw action in [-1, 1]."""
+
     action_dim: int
     hidden: Tuple[int, int] = (400, 300)
 
-    @nn.compact
-    def __call__(self, obs: Array) -> Array:
-        # tanh-bounded raw action in [-1, 1]
-        return jnp.tanh(MLP(self.hidden, self.action_dim)(obs))
+    def init(self, key: Array, obs: Array) -> list:
+        return MLP(self.hidden, self.action_dim).init(key, obs)
+
+    def apply(self, params: list, obs: Array) -> Array:
+        return jnp.tanh(MLP(self.hidden, self.action_dim).apply(params, obs))
 
 
-class Critic(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Critic:
+    """Q(obs, action) over the concatenated input."""
+
     hidden: Tuple[int, int] = (400, 300)
 
-    @nn.compact
-    def __call__(self, obs: Array, action: Array) -> Array:
+    def init(self, key: Array, obs: Array, action: Array) -> list:
         x = jnp.concatenate([obs, action], axis=-1)
-        return MLP(self.hidden, 1)(x)[..., 0]
+        return MLP(self.hidden, 1).init(key, x)
+
+    def apply(self, params: list, obs: Array, action: Array) -> Array:
+        x = jnp.concatenate([obs, action], axis=-1)
+        return MLP(self.hidden, 1).apply(params, x)[..., 0]
 
 
 class ReplayBuffer(NamedTuple):

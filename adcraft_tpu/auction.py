@@ -4,7 +4,7 @@ The reference simulates implicit keywords by literally materializing every
 competitor bid and running a per-auction python loop
 (``nth_price_auction``, adcraft/synthetic_kw_helpers.py:116-180 — a
 partition/sort plus a searchsorted loop per auction). That design is hostile
-to TPUs: dynamic shapes, tiny tensors, host loops.
+to accelerators: dynamic shapes, tiny tensors, host loops.
 
 Here the auction is reduced to its exact sufficient statistics:
 
@@ -51,7 +51,7 @@ class CellAuction(NamedTuple):
     impressions: Array  # (...), int32 — auctions won
     n_candidates: Array  # (...), int32 — click-coinflip count (see quirk below)
     cost_draws: Array  # (M, ...), money — i.i.d. cost-per-click draws,
-    # lane-major so the keyword axis stays on the TPU's 128-lane dimension
+    # lane-major so the keyword axis is the minor (contiguous) dimension
 
 
 def cell_binomial_fn(cfg: EnvConfig, max_clicks: int):
@@ -80,11 +80,10 @@ def bidder_binomial_fn(cfg: EnvConfig):
     binomial_sampler="inversion" this builds the (nmax, K) CDF ladder
     from the PER-KEYWORD (max_bidders, participation_rate) — constant
     across cells and days — and spends ONE half-word uniform per cell
-    (``binomial_inv_from_cdf``). The alternatives both measured tens of
-    ms/step at bench shape (PLAN.md "Measured perf (round 5)"): the
-    exact rejection sampler's lockstep while-loops, the sequential
-    64-level inversion walk (unfusable dependency chain), AND a
-    parallel Bernoulli-sum (32x the PRNG words). Stream changes with
+    (``binomial_inv_from_cdf``). The alternatives are the exact
+    rejection sampler's lockstep while-loops, the sequential 64-level
+    inversion walk (unfusable dependency chain), and a parallel
+    Bernoulli-sum (32x the PRNG words). Stream changes with
     the flag, like every other inversion site (PARITY.md "Inversion
     binomial sampling")."""
     if cfg.binomial_sampler == "inversion":
@@ -260,7 +259,7 @@ def nth_price_auction_device(
     (synthetic_kw_helpers.py:116-180) — arbitrary price index ``n``,
     multi-winner placements, zero-padding when an auction has fewer than
     ``num_winners + n`` bidders — vectorized over the auction axis for
-    the TPU instead of the reference's per-auction searchsorted loop.
+    the device instead of the reference's per-auction searchsorted loop.
     The env hot path never needs this (the reference only ever calls it
     with n=2, num_winners=1, where the closed-form reductions above are
     exact); it exists for API parity with users who call the helper

@@ -1,6 +1,6 @@
 """Baseline bidding agents.
 
-TPU-native (pure-functional, vmappable) rewrites of the reference's
+Pure-functional, vmappable rewrites of the reference's
 torch-based baselines (adcraft/baselines/interpolated_expectations.py).
 Agent state is a pytree of arrays; ``update`` folds in one day's
 observations and ``act`` produces the next action. vmap over the leading

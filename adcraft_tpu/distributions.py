@@ -1,6 +1,6 @@
 """Stateless, key-driven distribution kernels.
 
-TPU-native replacements for the reference's numpy samplers
+JAX replacements for the reference's numpy samplers
 (adcraft/synthetic_kw_helpers.py) and Rust kernels (src/lib.rs). Every
 function takes an explicit PRNG key; nothing here holds state. All are pure
 jnp and fuse into the surrounding jit — the reference's Rust reductions
@@ -129,7 +129,7 @@ def binomial_inv(
     The varying-``n`` hot sites (clicks given impressions, conversions
     given accepted clicks) build their ladder per CELL, where the
     materialized cumprod/cumsum intermediates were the step's largest
-    HBM-traffic term at bench shape (PLAN.md "Measured perf (round 4)").
+    memory-traffic term at bench shape.
     Same uniform consumption as the materialized ``binomial_cdf`` path;
     counts can differ from it at exact f32 CDF ties (sequential vs
     parallel-scan rounding), within the documented O(n*eps) tolerance.
@@ -168,11 +168,9 @@ def binomial_bernoulli_sum(
     words than the inversion walk, but zero sequential structure: the
     (nmax,) + shape flip tensor reduces in one fused pass, where the
     walk's nmax-level recurrence is a dependency chain XLA stops fusing
-    well past ~32 levels (measured: the 64-level bidder-count walk cost
-    ~24 ms/step in the pool regime — PLAN.md "Measured perf (round
-    5)"). Use for draws whose n-bound is moderate and word budget
+    well past ~32 levels. Use for draws whose n-bound is moderate and word budget
     irrelevant (the pool bidder count: nmax = max_bidders_bound,
-    +nmax*T*K/2 16-bit words per env-day at utilization ~0.15).
+    +nmax*T*K/2 16-bit words per env-day).
     Distribution-exact for n <= nmax (integer n; trials beyond n are
     masked); counts truncate at nmax like ``binomial_inv``.
     """
@@ -604,9 +602,8 @@ def single_cost_cent_moments_closed(bid: Array, loc: Array, scale: Array):
     geometric ratios; out-of-branch overflows are discarded by the
     selects), so the formulas are safe for any (bid, loc, scale).
 
-    Replaces the materialized (grid-1, K) tail table in the hot step —
-    measured ~1 ms/step at bench shape (PLAN.md "Measured perf
-    (round 4)"). |Laplace(loc, s)| depends on loc only through |loc|,
+    Replaces the materialized (grid-1, K) tail table in the hot step.
+    |Laplace(loc, s)| depends on loc only through |loc|,
     so a = |loc| throughout. Returns (mean_cents, std_cents,
     cmax_cents) like the grid version.
     """
@@ -783,8 +780,7 @@ def pool_cost_deci_moments(bid: Array, loc: Array, scale: Array, k: Array):
     the node powers w_q^(k-1) over INTEGER k are a static (Q, kmax)
     constant, and the per-cell work collapses to a one-hot contraction
     over k -- ~100x fewer transcendental evaluations than the naive
-    per-cell quadrature, which measured ~11 ms/step at bench shape
-    (PLAN.md "Measured perf (round 5)"). The k < 3 floor clamps g
+    per-cell quadrature. The k < 3 floor clamps g
     before the k = 1, 2 table columns; GL-48 is exact for polynomials
     past degree 90, so the w^(k-1) weight is handled exactly for every
     k <= kmax.
@@ -817,9 +813,13 @@ def pool_cost_deci_moments(bid: Array, loc: Array, scale: Array, k: Array):
     clamp_col = js[None, :] < 2.0  # k = 1, 2 use the floored g
 
     def table(gr, gr_c):
-        # A[j] + pshape: sum_q omega_q * (g or clamped g)^r * w_q^j
-        t_raw = jnp.tensordot(W, og * gr, axes=((0,), (0,)))
-        t_cl = jnp.tensordot(W, og * gr_c, axes=((0,), (0,)))
+        # A[j] + pshape: sum_q omega_q * (g or clamped g)^r * w_q^j.
+        # HIGHEST: the env path's only f32 matrix products; a GPU would
+        # otherwise run them in TF32 (~10-bit mantissa) and blur the
+        # cost moments the aggregate spend draws use
+        hi = jax.lax.Precision.HIGHEST
+        t_raw = jnp.tensordot(W, og * gr, axes=((0,), (0,)), precision=hi)
+        t_cl = jnp.tensordot(W, og * gr_c, axes=((0,), (0,)), precision=hi)
         cc = clamp_col.reshape((1, kmax) + (1,) * nd)[0].reshape(
             (kmax,) + (1,) * nd
         )

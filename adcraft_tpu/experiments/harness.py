@@ -8,7 +8,7 @@ per-keyword profits and oracle ideal profits, and save npz files in the
 reference's ``{env_seed}_{agent_seed}.npz`` format (kw_profits,
 ideal_profits). Resumable by filename scan, like the notebook's cell 3.
 
-TPU-native difference: all (env_seed, agent_seed) repetitions of a grid
+Difference from the reference: all (env_seed, agent_seed) repetitions of a grid
 point run as one vectorized batch — a whole sweep cell is a single jit
 rollout instead of 16 sequential 25-45s episodes.
 """

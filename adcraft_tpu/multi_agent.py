@@ -4,7 +4,7 @@ Reference: adcraft/multi_agent/env.py (RLlib ``make_multi_agent`` over
 FlatArrayWrapper copies) and adcraft/multi_agent/train.py (per-policy
 round-robin ``.train()``). The reference's "multi-agent" environment is N
 *independent* env copies keyed by agent id — there is no interaction
-between agents — so the TPU-native version is a dict-keyed façade over
+between agents — so this version is a dict-keyed façade over
 independent envs (host-side, RLlib-compatible semantics) plus a
 round-robin trainer over independent PPO learners.
 """
@@ -76,7 +76,7 @@ def make_multi_trainers(
 ) -> Tuple[List, List]:
     """Build N independent learners (mixed algorithms) over one env config.
 
-    The TPU-native analogue of the reference's per-policy algo builds
+    The analogue of the reference's per-policy algo builds
     over the shared multi-agent env (multi_agent/train.py:16-96): its
     ``config_list`` mixes arbitrary RLlib algo configs per policy
     (PPO/A2C/TD3 in the shipped experiments); here ``algo_cfgs`` mixes

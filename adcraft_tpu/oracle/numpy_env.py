@@ -20,7 +20,7 @@ Two layers:
   style: competitor bids materialized per auction, an honest nth-price
   auction with sorting and padding (semantics of
   adcraft/synthetic_kw_helpers.py:116-180), per-impression click loops.
-  Used for *distributional* parity: the closed-form TPU kernels must match
+  Used for *distributional* parity: the closed-form JAX kernels must match
   this literal simulation in distribution.
 """
 

@@ -1,22 +1,23 @@
 """Mesh construction and env-batch sharding.
 
-The TPU-native replacement for the reference's process-level Ray actor
+The replacement for the reference's process-level Ray actor
 parallelism (SURVEY.md §2b: ``num_rollout_workers x num_envs_per_worker``
 RLlib actors + object-store RPC, agent_configs.py:60,85,107). Here the env
 batch is an array axis:
 
-* a 1-D ``('envs',)`` mesh spans all chips (across hosts when
-  ``jax.distributed`` is initialized — ICI within a slice, DCN across);
+* a 1-D ``('envs',)`` mesh spans all devices (the GPUs of a host, which
+  NVLink joins all to all, so the mesh needs no shape beyond the env
+  axis; across hosts when ``jax.distributed`` is initialized);
 * every leaf of the batched ``EnvState`` pytree is sharded on its leading
   axis; the fused step runs under jit with these shardings and XLA keeps
   each env's work resident on its shard — zero communication during
   stepping;
 * metric reductions (mean reward, AKNCP inputs) and learner gradients are
-  the only collectives (``psum``/``pmean``), riding ICI.
+  the only collectives (``psum``/``pmean``), which XLA hands to NCCL.
 
 Per-env PRNG keys are split from a root seed before sharding, so results
 are placement-independent: the same seed gives the same trajectories on 1
-chip or 64.
+device or 4.
 """
 
 from __future__ import annotations
@@ -68,9 +69,10 @@ def initialize_multihost(
     """Initialize jax.distributed for multi-host pods.
 
     Call once per host before building meshes; afterwards
-    ``jax.devices()`` spans the full pod slice and ``make_env_mesh``
-    shards envs globally. No-ops when everything is auto-detectable (TPU
-    pods populate these from the metadata server).
+    ``jax.devices()`` spans every host's devices and ``make_env_mesh``
+    shards envs globally. Without a cluster manager to detect them, pass
+    all three arguments (coordinator ``host:port``, process count, this
+    process's id).
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -6,7 +6,7 @@ Replaces the reference hot path (SURVEY.md §3.1):
 Python<->Rust FFI crossings per env-step
 (adcraft/gymnasium_kw_env.py:160-269, adcraft/bidding_simulation.py:44-234).
 
-TPU-native structure:
+Structure:
 
 * All stochastic sampling for a sub-timestep (impressions, click counts,
   cost draws, conversion counts, revenue draws) is vectorized over the K
@@ -167,7 +167,7 @@ def _gate_keywords_jacobi(
 
     where g_k is the per-keyword prefix-acceptance rule. Jacobi iteration
     on these equations is fully parallel over keywords (one O(K*M) sweep
-    per iteration, TPU-friendly) and after i sweeps the first i cells are
+    per iteration) and after i sweeps the first i cells are
     exact, so it terminates in <= K sweeps; in practice budget either
     doesn't bind (1-2 sweeps) or a break cell zeroes the whole tail
     (3-4 sweeps). The while_loop exits as soon as a sweep is a no-op, at
@@ -370,18 +370,12 @@ def _gate_keywords_lazy_agg(
     cells whose budget lands beyond lane L (typically the single
     exhaustion cell of the day). Without it each tail cell with a cheap
     first click costs one full lockstep sweep — across a vmapped batch
-    the WORST env's chain length serializes everyone (measured 65k ->
-    37k env-steps/s/chip regression from one such extra O(w) term;
-    PLAN.md "Measured perf (round 3)").
+    the WORST env's chain length serializes everyone.
 
-    (Multi-round resolution per iteration — W classify+resolve rounds,
-    "gate_resolve_w" — was built and MEASURED DEAD on the TPU in round
-    4: the deep-resolve RNG chain makes a round about as expensive as a
-    lockstep iteration, so W4/W8/W16 all regressed vs W1 (16.9/39.3/
-    58.5 vs 14.2 ms/step); a rank-mask multi-resolution was equally
-    dead because budget-decay chains expose exactly one new deep cell
-    per classification. PLAN.md "Measured perf (round 4)" records the
-    numbers; the knob was removed in round 5.)
+    (Multi-round resolution per iteration — W classify+resolve rounds —
+    was tried and removed: the deep-resolve RNG chain makes a round
+    about as expensive as a lockstep iteration, and budget-decay chains
+    expose exactly one new deep cell per classification.)
 
     Before the while loop one resolve-free classification pass runs
     UNROLLED (the "warm init"): with zero initial spends every cell sees
@@ -389,14 +383,13 @@ def _gate_keywords_lazy_agg(
     sampling phase — gates whose budget never binds then converge after
     a single in-loop confirmation sweep.
 
-    TPU shape discipline (measured; PLAN.md "Measured perf (round 3)"):
-    every per-sweep op is elementwise, a reduction, or a scalar-indexed
-    slice/take. In particular the lite resolution uses the prefix-mask
-    identity ``spend = sum(costs * accept_mask)`` instead of a
-    per-column gather (a (L+1, N) take_along_axis in the while body
-    lowered to a ~200 ms serialized gather at 4096 envs — 45x step
-    regression), and the deep resolution writes back through a
-    broadcast one-hot select, not a scatter. Sweep scheme and epilogue
+    Shape discipline: every per-sweep op is elementwise, a reduction,
+    or a scalar-indexed slice/take. In particular the lite resolution
+    uses the prefix-mask identity ``spend = sum(costs * accept_mask)``
+    instead of a per-column gather (a (L+1, N) take_along_axis in the
+    while body lowered to a serialized gather under vmap), and the deep
+    resolution writes back through a broadcast one-hot select, not a
+    scatter. Whether each idiom still pays on the GPU is ROADMAP S5. Sweep scheme and epilogue
     identical to ``_gate_keywords_lazy``; bit-identical to the
     sequential ``_gate_keywords_scan_agg`` cross-validation gate
     (tests/test_step.py cross-checks all scopes and resolve widths).
@@ -519,8 +512,7 @@ def _lazy_agg_loop(
         # from this round's classified spends. All cell-indexed
         # reads go through the one-hot mask (never jnp.take /
         # dynamic_slice with a traced index: under vmap those lower
-        # to per-env gathers, measured ~20-25 ms per sweep at 4096
-        # envs — PLAN.md "Measured perf (round 3)"). When no cell is
+        # to per-env gathers inside the loop). When no cell is
         # bad the mask is all-false, the resolver runs on zero
         # inputs and its output is discarded by the same mask.
         hit = karange == j
@@ -623,9 +615,7 @@ def _make_agg_gate(
          mid-loop state (cached deep resolutions included) to
          convergence, and scattered back. Every lockstep iteration of
          the deep tail then costs O(cap * N) instead of O(E * N) —
-         under vmap the batch pays the worst env's iteration count,
-         which round 4 measured at ~0.14 ms per iteration at (4096,
-         400) (PLAN.md "Measured perf (round 4)").
+         under vmap the batch pays the worst env's iteration count.
 
     If more than ``cap`` envs are still unconverged, the whole batch
     resumes lockstep (the round-4 behavior) — a runtime branch, so
@@ -726,8 +716,7 @@ def _make_agg_gate(
         # common case away from the budget-break chunk, and every call
         # in budget-unconstrained regimes) skip the gather/loop/scatter
         # machinery entirely — this is what keeps the compaction rule
-        # from taxing configs whose gates never bind (a measured ~25%
-        # sparse-regime regression before this branch existed)
+        # from taxing configs whose gates never bind
         state = lax.cond(n_strag == 0, lambda s: s, run_any, state)
         if _GATE_STATS_HOOK is not None:
             _GATE_STATS_HOOK(state[5])
@@ -828,8 +817,7 @@ def _cell_tables(
             )
             # barrier: without it XLA rematerializes the transcendental
             # p_win (exp/log power) inside every unrolled level of the
-            # impression walk below (measured ~10 ms/step of the pool
-            # regime; PLAN.md "Measured perf (round 5)")
+            # impression walk below
             kvec, p_win = jax.lax.optimization_barrier((kvec, p_win))
             impressions = bfn(k_imp, n_auc_t, p_win)
             n_clicks = bfn(k_click, impressions, kw.bctr)
@@ -1095,11 +1083,10 @@ def simulate_day(
             Per-keyword params (lite_col, loc, scale, y0) arrive
             pre-read by the caller's one-hot contractions — this body
             contains NO traced-index memory op (see the gate docstring
-            on TPU shape discipline); ``t``/``k`` feed only scalar
+            on shape discipline); ``t``/``k`` feed only scalar
             fold_ins. (Precomputing these keys in the sampling phase
-            and one-hot-reading them in the gate was MEASURED SLOWER —
-            19.9 vs 14.2 ms/step at 4096 envs — so the in-gate fold
-            chain stays; PLAN.md "Measured perf (round 4)".) For
+            and one-hot-reading them in the gate was slower, so the
+            in-gate fold chain stays.) For
             explicit keywords the lane sampler is the parametric cost
             model on the one-hot-read bid (``y0`` carries bid - 0.005;
             phantom cells never deep-resolve, their s_full is 0); for
@@ -1509,8 +1496,21 @@ def sample_day_draws(
     per-sub-timestep fold_in, 4-way site split) so the numpy oracle
     (adcraft_tpu.oracle.simulate_day_numpy) can be driven with the very
     draws the fused kernel consumes. Memory scales with T*K*M; do not use
-    on large configs.
+    on large configs. Returns numpy arrays; ``day_draw_table`` is the
+    jittable (and vmappable) form.
     """
+    import numpy as np
+
+    return {
+        name: np.asarray(x)
+        for name, x in day_draw_table(cfg, key, kw, bids, dtype).items()
+    }
+
+
+def day_draw_table(
+    cfg: EnvConfig, key: Array, kw: KeywordState, bids: Array, dtype=None
+):
+    """``sample_day_draws`` as device arrays (jittable)."""
     if dtype is None:
         dtype = cfg.money_dtype
     if (
@@ -1524,8 +1524,6 @@ def sample_day_draws(
             "modes draw after/without lane tables; they are validated "
             "distributionally, tests/test_step.py)"
         )
-    import numpy as np
-
     K = kw.num_keywords
     M = cfg.max_clicks_per_cell
     T = cfg.timesteps_per_day
@@ -1535,17 +1533,15 @@ def sample_day_draws(
     volume = jnp.minimum(volume, cfg.max_volume)
     n_auctions = split_volume(cfg, volume)
 
-    imps, clicks, costs, flags, revs = [], [], [], [], []
-    for t in range(T):
-        # mirror the two-tier lane structure of simulate_day: t=0 uses the
-        # full buffer, t>=1 the smaller rest buffer (padded with zeros
-        # here so the oracle table stays rectangular — lanes beyond the
-        # per-t buffer are never reachable since n_clicks <= buffer)
-        m = M if t == 0 else cfg.max_clicks_rest
+    def cell_draws(t, n_auc_t, m):
+        """One sub-timestep's draws as (K, M) oracle-table rows. ``m`` is
+        the sub-timestep's lane buffer (two-tier, as in simulate_day);
+        lanes beyond it are zero padding the oracle never reaches, since
+        n_clicks <= m."""
         kt = jax.random.fold_in(k_cells, t)
         k_auc, k_click, k_conv, k_rev = jax.random.split(kt, 4)
         cell = run_cell_auctions(
-            cfg, k_auc, bids, n_auctions[t], kw, dtype=dtype, max_clicks=m
+            cfg, k_auc, bids, n_auc_t, kw, dtype=dtype, max_clicks=m
         )
         n_clicks = cell_binomial_fn(cfg, m)(k_click, cell.n_candidates, kw.bctr)
         conv_flags = jax.random.uniform(k_conv, (m, K)) <= kw.sctr[None, :]
@@ -1553,28 +1549,34 @@ def sample_day_draws(
             k_rev, kw.rev_mean[None, :], kw.rev_std[None, :], (m, K), dtype=dtype
         )
 
-        def pad(x_mk, fill=0):
+        def pad(x_mk):
             """(m, K) lane-major draws -> (K, M) oracle-table rows."""
-            x = x_mk.T
-            if m == M:
-                return x
-            return jnp.concatenate(
-                [x, jnp.full((K, M - m), fill, x.dtype)], axis=1
-            )
+            return jnp.pad(x_mk.T, ((0, 0), (0, M - m)))
 
-        imps.append(cell.impressions)
-        clicks.append(n_clicks)
-        costs.append(pad(cell.cost_draws))
-        flags.append(pad(conv_flags))
-        revs.append(pad(rev_draws))
-    return {
-        "volume": np.asarray(volume),
-        "impressions": np.stack([np.asarray(x) for x in imps]),
-        "n_clicks": np.stack([np.asarray(x) for x in clicks]),
-        "costs": np.stack([np.asarray(x) for x in costs]),
-        "conv_flags": np.stack([np.asarray(x) for x in flags]),
-        "revs": np.stack([np.asarray(x) for x in revs]),
-    }
+        return (
+            cell.impressions,
+            n_clicks,
+            pad(cell.cost_draws),
+            pad(conv_flags),
+            pad(rev_draws),
+        )
+
+    # t = 0 on the full buffer, t >= 1 vmapped over the sub-timestep on
+    # the rest buffer: the same fold_in key tree as a loop over t, so the
+    # draws are identical, with one copy of the sampling program instead
+    # of T
+    first = cell_draws(0, n_auctions[0], M)
+    if T > 1:
+        rest = jax.vmap(
+            lambda t, n: cell_draws(t, n, cfg.max_clicks_rest)
+        )(jnp.arange(1, T), n_auctions[1:])
+        cells = [
+            jnp.concatenate([f[None], r]) for f, r in zip(first, rest)
+        ]
+    else:
+        cells = [f[None] for f in first]
+    names = ("impressions", "n_clicks", "costs", "conv_flags", "revs")
+    return {"volume": volume, **dict(zip(names, cells))}
 
 
 def update_keywords(

@@ -2,8 +2,8 @@
 //
 // The reference ships a Rust (pyo3) extension for its host-side hot loops
 // (src/lib.rs: nth-price auction helpers, reductions, outcome reprs). The
-// TPU compute path here is XLA, but the host runtime keeps native kernels
-// for the pieces that stay on CPU:
+// device compute path here is XLA, but the host runtime keeps native
+// kernels for the pieces that stay on CPU:
 //
 //   * gate_day       — the oracle's exact day-simulation loop (budget
 //                      gating over (T, K, M) draw tables), used by parity

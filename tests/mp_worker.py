@@ -3,7 +3,7 @@
 Not a pytest module — spawned as ``python tests/mp_worker.py <pid> <nproc>
 <port> <outprefix>`` with JAX_PLATFORMS=cpu and 4 forced host devices, so
 two processes form an 8-device global mesh (the CPU stand-in for a
-2-host TPU pod slice, SURVEY.md §2b).
+2-host job, SURVEY.md §2b).
 
 Exercises the full multi-host surface of ``adcraft_tpu.parallel.mesh``:
 ``initialize_multihost`` (the jax.distributed entry), ``make_env_mesh``

@@ -229,3 +229,76 @@ def test_make_multi_trainers_algo_name_dispatch():
     assert isinstance(trainers[1], A2CTrainer)
     assert isinstance(trainers[2], TD3Trainer)
     assert len(states) == 3
+
+
+@pytest.mark.unit
+def test_compile_cache_dir_honours_env_else_fixed_repo_path():
+    import os
+
+    from adcraft_tpu.profiling import compile_cache_dir
+
+    assert compile_cache_dir({"JAX_COMPILATION_CACHE_DIR": "/cache/x"}) == "/cache/x"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    default = compile_cache_dir({})
+    assert default == os.path.join(repo, ".jax_cache")
+    # fixed: no temp name, PID or time in it
+    assert compile_cache_dir({}) == default
+    assert compile_cache_dir({"JAX_COMPILATION_CACHE_DIR": ""}) == default
+
+
+@pytest.mark.unit
+def test_require_gpu_refuses_the_cpu():
+    from adcraft_tpu.profiling import require_gpu
+
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        require_gpu()
+
+
+@pytest.mark.unit
+def test_env_and_ppo_import_without_optional_packages():
+    """The env core and the PPO learner import with gymnasium, flax,
+    pandas and orbax absent (the card's machine has none of them), and
+    the Gymnasium adapter still loads on first access."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = """
+import importlib.abc, sys
+OPTIONAL = ("gymnasium", "flax", "pandas", "orbax")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in OPTIONAL:
+            raise ImportError("blocked " + name)
+sys.meta_path.insert(0, Block())
+import adcraft_tpu, adcraft_tpu.env, adcraft_tpu.agents.ppo, adcraft_tpu.parallel
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in OPTIONAL)
+assert not loaded, loaded
+try:
+    adcraft_tpu.BiddingSimulation
+except ImportError as exc:
+    assert "gymnasium" in str(exc), exc
+else:
+    raise AssertionError("adapter loaded with gymnasium blocked")
+print("ok")
+"""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-3000:]
+
+
+@pytest.mark.unit
+def test_gym_adapter_is_a_lazy_package_attribute():
+    import adcraft_tpu
+    from adcraft_tpu.gym_env import BiddingSimulation
+    from adcraft_tpu.wrappers import FlatArrayWrapper
+
+    assert adcraft_tpu.BiddingSimulation is BiddingSimulation
+    assert adcraft_tpu.FlatArrayWrapper is FlatArrayWrapper
+    with pytest.raises(AttributeError):
+        adcraft_tpu.no_such_name

@@ -1,4 +1,4 @@
-"""Distributional parity: closed-form TPU kernels vs literal simulation.
+"""Distributional parity: closed-form JAX kernels vs literal simulation.
 
 The fused kernel replaces the reference's literal nth-price auction with
 exact sufficient statistics (adcraft_tpu.auction). These tests verify the
